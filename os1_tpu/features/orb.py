@@ -3,7 +3,7 @@ orientation -> rotated binary descriptors, as one jitted device program.
 
 Re-designs the reference's ORBextractor (ORBextractor.cc:907-996: 8-level
 pyramid, per-cell FAST with 20->7 fallback, octree balancing, IC-angle
-orientation, Gaussian blur + rotated BRIEF) for TPU: every stage is a dense
+orientation, Gaussian blur + rotated BRIEF) for an accelerator: every stage is a dense
 data-parallel map over the whole level, keypoint lists are fixed-capacity
 masked arrays, and the per-level loop is unrolled at trace time (static
 shapes per level).
@@ -107,8 +107,8 @@ def _brief_pattern(seed: int) -> np.ndarray:
 
 
 PS = 32  # keypoint patch size (covers the radius-15 orientation disc and
-#          the +-14 nearest-pixel rotated BRIEF samples); 32 = one TPU lane
-#          tile, so per-patch reductions stay aligned
+#          the +-14 nearest-pixel rotated BRIEF samples); a power of two,
+#          so per-patch reductions stay aligned
 _PC = 15  # patch center (row/col of the keypoint inside its patch)
 
 
@@ -119,9 +119,10 @@ def _rotated_patch_table(seed: int) -> np.ndarray:
     of a rotated pattern, ORBextractor.cc computeOrbDescriptor).
 
     The steered pattern is precomputed per orientation bin; descriptors are
-    sampled from per-keypoint 32x32 patches with one-hot MXU matmuls —
-    random flat gathers from the pyramid stack cost ~3x more than the
-    patch materialization + matmuls on TPU (profile_patch.py)."""
+    sampled from per-keypoint 32x32 patches with one-hot matmuls. Premise:
+    random flat gathers from the pyramid stack cost more than the patch
+    materialization + matmuls. That held on the accelerator the system was
+    first built on; on an NVIDIA GPU it is not measured."""
     pat = _brief_pattern(seed)  # [256, 2, 2] (x, y)
     r = BRIEF_RADIUS + 1
     tables = []
@@ -149,7 +150,7 @@ def _ic_patch_weights() -> tuple[np.ndarray, np.ndarray]:
     """Dense x-/y-moment weight masks [PS, PS] over the radius-15
     orientation disc centered at the patch center — the reference's full
     IC_Angle disc (ORBextractor.cc:86-113), evaluated as two [PS*PS] dot
-    products per patch (free on the VPU once the patch is materialized)."""
+    products per patch (cheap once the patch is materialized)."""
     ys, xs = np.mgrid[0:PS, 0:PS]
     dy, dx = ys - _PC, xs - _PC
     disc = (dx * dx + dy * dy) <= (PATCH // 2) ** 2
@@ -161,10 +162,10 @@ def make_extractor(cfg: OrbConfig):
     """Build a jitted extractor: float32 [H, W] grayscale -> FrameFeatures.
 
     All pyramid levels live in one padded [L, H, W] stack and every stage
-    (pyramid resize as two MXU matmuls, FAST, NMS, balanced top-k, patches,
+    (pyramid resize as two matmuls, FAST, NMS, balanced top-k, patches,
     orientation, blur, rotated BRIEF) runs ONCE over the whole stack — the
     per-level loop version (reference ORBextractor.cc:907-969 structure) is
-    dominated by per-op dispatch overhead on TPU, not compute.
+    dominated by per-op dispatch overhead on an accelerator, not compute.
     """
     sizes = cfg.level_sizes
     budgets = cfg.features_per_level
@@ -217,8 +218,9 @@ def make_extractor(cfg: OrbConfig):
         # border samples on the upper levels. Keypoints sit >= BORDER from
         # their level bounds, so one 32x32 patch per keypoint covers the
         # orientation disc and every rotated BRIEF sample; the patches are
-        # materialized with vmapped dynamic_slice — ~3x cheaper than random
-        # flat gathers from the stack on TPU (profile_patch.py).
+        # materialized with vmapped dynamic_slice, on the premise that this
+        # is cheaper than random flat gathers from the stack (see
+        # _rotated_patch_table).
         blurred = image.gaussian_blur(image.replicate_level_edges(pyr, hb, wb))
         cx = jnp.round(xy_o[:, 0]).astype(jnp.int32)
         cy = jnp.round(xy_o[:, 1]).astype(jnp.int32)
@@ -238,7 +240,7 @@ def make_extractor(cfg: OrbConfig):
 
         # Descriptors: steered BRIEF via the per-orientation patch-local
         # sample table; the 512 samples per keypoint are picked with one-hot
-        # MXU matmuls (row select) + a masked column sum — no gathers.
+        # matmuls (row select) + a masked column sum — no gathers.
         two_pi = 2.0 * jnp.pi
         abin = (
             jnp.round(jnp.mod(angle, two_pi) * (N_ORIENT / two_pi)).astype(jnp.int32)
@@ -247,7 +249,7 @@ def make_extractor(cfg: OrbConfig):
         idx = sample_table[abin]  # [N, 512] patch-flat sample indices
         ir, ic = idx // PS, idx % PS
         lanes = jnp.arange(PS, dtype=jnp.int32)
-        # Row-select via MXU: T[n, s, c] = patches[n, ir[n, s], c]. bf16 is
+        # Row-select via matmul: T[n, s, c] = patches[n, ir[n, s], c]. bf16 is
         # exact for the one-hot side; the blurred intensities round at
         # 2^-8 relative — flipping only BRIEF comparisons of near-equal
         # pixels, far below sensor noise.

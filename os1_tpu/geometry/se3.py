@@ -2,7 +2,7 @@
 
 Replaces the reference's g2o manifold types (``VertexSE3Expmap`` /
 ``se3quat.h``, reference Thirdparty/g2o/g2o/types) with functional exp/log
-maps so pose blocks can be optimized in batch on the MXU/VPU instead of
+maps so pose blocks can be optimized in batch on the device instead of
 through a pointer-graph optimizer.
 
 Conventions:

@@ -36,8 +36,9 @@ def triangulate_dlt(P1: jnp.ndarray, P2: jnp.ndarray, x1: jnp.ndarray, x2: jnp.n
     difference only matters for points AT infinity (w -> 0), which every
     caller rejects anyway (parallax/cheirality gates; low-parallax far
     points are routed along rays, not through this solve). A batched 4x4
-    eigh here cost ~30 ms per keyframe event on TPU — the iterative eigen
-    solver is the one linear-algebra primitive the MXU hates.
+    eigh here was an iterative eigensolver per keyframe event, far slower
+    than these elementwise products on the accelerator the system was first
+    built on (not measured on the GPU).
     """
     rows = jnp.stack(
         [

@@ -10,9 +10,15 @@ stays exact. FAST thresholds, the BRIEF pattern, matcher gates and the
 vocabulary are thereby exercised against real-world descriptor
 distributions, not the band-limited synthetic textures of io/synthetic.py.
 
-Sources (shipped inside packages already installed in the image):
-  * sklearn.datasets: china.jpg, flower.jpg — 640x427 RGB photos
-  * matplotlib sample_data: grace_hopper.jpg — 600x512 RGB photo
+Sources: data/photos.npz holds the three photographs as uint8 arrays,
+taken from the copies that ship inside scikit-learn and matplotlib:
+  * china, flower — 427x640 RGB, as sklearn.datasets.load_sample_image
+    returns them. Both CC BY 2.0, by Flickr users danielbuechele and
+    vultilion, retrieved 2011 by Robert Layton (scikit-learn's
+    datasets/images/README.txt).
+  * grace_hopper — 600x512 gray, as cv2.imread(IMREAD_GRAYSCALE) decodes
+    matplotlib's sample_data/grace_hopper.jpg. U.S. Navy photograph,
+    public domain.
 
 The same photos feed the vocabulary-validation corpus (scripts/
 validate_vocab_real.py): ORB descriptors extracted from them measure word
@@ -20,9 +26,15 @@ coverage / quantization balance of the shipped DBoW2 tree on real imagery.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from .synthetic import TexturedPlane
+
+PHOTOS_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "photos.npz"
+)
 
 
 def _to_gray(img: np.ndarray) -> np.ndarray:
@@ -32,37 +44,11 @@ def _to_gray(img: np.ndarray) -> np.ndarray:
 
 
 def load_photos() -> list[np.ndarray]:
-    """All bundled real photographs as float32 grayscale arrays (largest
-    first). Returns [] when none of the source packages are installed."""
-    photos = []
-    try:
-        from sklearn.datasets import load_sample_image
-
-        photos.append(_to_gray(np.asarray(load_sample_image("china.jpg"))))
-        photos.append(_to_gray(np.asarray(load_sample_image("flower.jpg"))))
-    except Exception:
-        pass
-    try:
-        import os
-
-        import matplotlib
-
-        p = os.path.join(
-            matplotlib.get_data_path(), "sample_data", "grace_hopper.jpg"
-        )
-        try:
-            import cv2
-
-            img = cv2.imread(p, cv2.IMREAD_GRAYSCALE)
-            if img is not None:
-                photos.append(img.astype(np.float32))
-        except ImportError:
-            from PIL import Image
-
-            photos.append(_to_gray(np.asarray(Image.open(p))))
-    except Exception:
-        pass
-    return photos
+    """The three bundled photographs as float32 grayscale arrays: china,
+    flower (BT.601 luminance of the RGB arrays) and grace_hopper."""
+    with np.load(PHOTOS_PATH) as z:
+        return [_to_gray(z["china"]), _to_gray(z["flower"]),
+                z["grace_hopper"].astype(np.float32)]
 
 
 def _tile_to(tex: np.ndarray, h: int, w: int, flip: bool = False) -> np.ndarray:
@@ -83,10 +69,8 @@ def _tile_to(tex: np.ndarray, h: int, w: int, flip: bool = False) -> np.ndarray:
 def photo_room_scene(half_size: float = 6.0, half_h: float = 2.5):
     """Four inward-facing walls textured with real photographs — the
     real-imagery analogue of synthetic.room_scene for the loop-closure
-    circuit. Returns None when no photos are available (caller skips)."""
+    circuit."""
     photos = load_photos()
-    if not photos:
-        return None
     S, hh = half_size, half_h
     specs = [
         (np.array([-S, -hh, S]), np.array([2 * S, 0.0, 0.0])),   # z = +S
@@ -109,10 +93,8 @@ def photo_room_scene(half_size: float = 6.0, half_h: float = 2.5):
 def photo_scene():
     """Two photo planes at different depths + a photo floor (the general
     non-planar layout of synthetic.default_scene with real textures) for
-    forward/orbit tracking sequences. None when no photos available."""
+    forward/orbit tracking sequences."""
     photos = load_photos()
-    if not photos:
-        return None
     p = [photos[i % len(photos)] for i in range(3)]
     return [
         TexturedPlane(

@@ -12,6 +12,8 @@ plane's texture bilinearly. Pure numpy, vectorized per plane.
 """
 from __future__ import annotations
 
+import hashlib
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -25,18 +27,40 @@ class TexturedPlane:
     texture: np.ndarray  # [Ht, Wt] float32 intensities
 
 
+def _cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] bicubic interpolation weights with OpenCV INTER_CUBIC's
+    conventions: Keys kernel with a = -0.75, half-pixel centre mapping
+    src = (dst + 0.5) * n_in / n_out - 0.5, and replicated borders."""
+    a = -0.75
+    src = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    t = src - i0
+    w = np.stack([
+        ((a * (t + 1) - 5 * a) * (t + 1) + 8 * a) * (t + 1) - 4 * a,
+        ((a + 2) * t - (a + 3)) * t * t + 1,
+        ((a + 2) * (1 - t) - (a + 3)) * (1 - t) * (1 - t) + 1,
+    ], axis=1)
+    w = np.concatenate([w, 1.0 - w.sum(1, keepdims=True)], axis=1)
+    m = np.zeros((n_out, n_in))
+    for k in range(4):
+        np.add.at(m, (np.arange(n_out), np.clip(i0 + k - 1, 0, n_in - 1)), w[:, k])
+    return m
+
+
+def resize_cubic(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bicubic resize of a 2-D array to [h, w] float32 (cv2.resize with
+    INTER_CUBIC, in numpy)."""
+    img = np.asarray(img, np.float64)
+    ry = _cubic_resize_matrix(img.shape[0], h)
+    rx = _cubic_resize_matrix(img.shape[1], w)
+    return (ry @ img @ rx.T).astype(np.float32)
+
+
 def smooth_texture(h, w, cells, lo=20.0, hi=235.0, seed=0):
     """Band-limited random texture with strong corners at every scale."""
     rng = np.random.default_rng(seed)
     base = rng.uniform(lo, hi, size=(cells, cells)).astype(np.float32)
-    try:
-        import cv2
-
-        return np.clip(cv2.resize(base, (w, h), interpolation=cv2.INTER_CUBIC), 0, 255)
-    except ImportError:  # nearest-neighbor fallback
-        ys = (np.arange(h) * cells // h).clip(0, cells - 1)
-        xs = (np.arange(w) * cells // w).clip(0, cells - 1)
-        return base[ys][:, xs]
+    return np.clip(resize_cubic(base, h, w), 0, 255)
 
 
 def default_scene(seed=0) -> list[TexturedPlane]:
@@ -184,26 +208,45 @@ def orbit_trajectory(n_frames: int, radius: float = 0.04,
     return poses
 
 
-def render_sequence(scene, poses, K, h: int, w: int, cache_key: str | None = None,
+FRAME_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".frame_cache",
+)
+
+
+def _render_key(scene, poses, K, h, w, noise_sigma, seed) -> str:
+    """Digest of everything a rendered stack depends on, this module's own
+    source included, so a changed scene or renderer never hits a stale
+    entry."""
+    hsh = hashlib.sha256()
+    with open(__file__, "rb") as f:
+        hsh.update(f.read())
+    for plane in scene:
+        for arr in (plane.origin, plane.u_axis, plane.v_axis, plane.texture):
+            arr = np.ascontiguousarray(arr)
+            hsh.update(str((arr.dtype, arr.shape)).encode())
+            hsh.update(arr.tobytes())
+    hsh.update(np.ascontiguousarray(np.stack(poses), np.float64).tobytes())
+    hsh.update(np.ascontiguousarray(K, np.float64).tobytes())
+    hsh.update(repr((h, w, float(noise_sigma), int(seed))).encode())
+    return hsh.hexdigest()[:32]
+
+
+def render_sequence(scene, poses, K, h: int, w: int,
                     noise_sigma: float = 0.0, seed: int = 0) -> np.ndarray:
-    """Render a whole trajectory to a [n, h, w] uint8 stack, with an optional
-    /tmp cache (rendering 300 frames of the pure-numpy ray tracer costs
-    minutes; the cache makes every bench/profile rerun start in seconds).
+    """Render a whole trajectory to a [n, h, w] uint8 stack, cached in
+    FRAME_CACHE_DIR and keyed by the render's inputs (rendering 300 frames
+    with the pure-numpy ray tracer takes minutes; the cache makes every
+    rerun start in seconds).
 
     noise_sigma > 0 adds per-frame Gaussian photometric noise (deterministic
-    per cache_key+seed) — the synthetic stand-in for sensor noise asked of
-    the accuracy gates when no real dataset is available."""
-    import os
-
-    path = None
-    if cache_key is not None:
-        path = (f"/tmp/os1_frames_{cache_key}_{len(poses)}_{h}x{w}"
-                f"_n{noise_sigma:g}_s{seed}.npz")
-        if os.path.exists(path):
-            try:
-                return np.load(path)["frames"]
-            except Exception:
-                pass  # corrupt/partial cache: re-render
+    per seed) — the synthetic stand-in for sensor noise asked of the
+    accuracy gates when no real dataset is available."""
+    key = _render_key(scene, poses, K, h, w, noise_sigma, seed)
+    path = os.path.join(FRAME_CACHE_DIR, f"{key}.npz")
+    if os.path.exists(path):
+        with np.load(path) as z:
+            return z["frames"]
     frames = np.stack([
         np.clip(render(scene, T, K, h, w), 0, 255) for T in poses
     ])
@@ -211,10 +254,10 @@ def render_sequence(scene, poses, K, h: int, w: int, cache_key: str | None = Non
         rng = np.random.default_rng(seed)
         frames = frames + rng.normal(0.0, noise_sigma, frames.shape)
     frames = np.clip(frames, 0, 255).astype(np.uint8)
-    if path is not None:
-        tmp = path[:-4] + f".tmp{os.getpid()}.npz"
-        np.savez_compressed(tmp, frames=frames)
-        os.replace(tmp, path)
+    os.makedirs(FRAME_CACHE_DIR, exist_ok=True)
+    tmp = path[:-4] + f".tmp{os.getpid()}.npz"
+    np.savez_compressed(tmp, frames=frames)
+    os.replace(tmp, path)
     return frames
 
 

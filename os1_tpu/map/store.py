@@ -1,4 +1,4 @@
-"""Struct-of-arrays map store: the TPU-native replacement for the reference's
+"""Struct-of-arrays map store: the array-native replacement for the reference's
 pointer-graph map model (Map / KeyFrame / MapPoint, reference Map.h:153-156,
 KeyFrame.h, MapPoint.h).
 

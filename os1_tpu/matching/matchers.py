@@ -140,7 +140,8 @@ def search_for_triangulation(
     """Epipolar-constrained matching of yet-unmatched features between two
     keyframes, for new-point triangulation (ORBmatcher::SearchForTriangulation,
     ORBmatcher.cc:652-804; the reference prunes candidates with BoW buckets
-    purely for CPU speed — on the MXU the full gated matrix is the fast path).
+    purely for CPU speed — on the device the full gated matrix is the fast
+    path).
 
     unmatched1/unmatched2: bool masks of features not yet bound to map points.
     """

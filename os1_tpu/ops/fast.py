@@ -35,7 +35,7 @@ def _ring_views(img: jnp.ndarray) -> list:
 
     A Python LIST of lazy pad+slice views, not a stacked [16, ...] array:
     stacking materializes ~40 MB per pyramid stack and every roll of it in
-    HBM; as separate views XLA fuses all ring reads into the elementwise
+    device memory; as separate views XLA fuses all ring reads into the elementwise
     min/max chain that follows — one pass over the image."""
     h, w = img.shape[-2], img.shape[-1]
     pad = [(0, 0)] * (img.ndim - 2) + [(3, 3), (3, 3)]

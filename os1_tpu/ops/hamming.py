@@ -2,14 +2,14 @@
 primitive behind every matcher variant (reference ORBmatcher::DescriptorDistance,
 ORBmatcher.cc:1605-1621, a scalar XOR+popcount loop).
 
-Two TPU-native formulations:
+Two formulations, both plain XLA:
 
 * ``hamming_matrix``: XOR + ``lax.population_count`` on the packed uint32x8
-  form (VPU). Memory-optimal; good for small candidate sets.
-* ``hamming_matrix_mxu``: unpack to ±1 int8 and use a 256-deep matmul on the
-  MXU: ``dist = (256 - <a, b>) / 2``. For the dense N x M distance tables the
-  matchers build (1k x 1k and up), the systolic array computes this at
-  matmul throughput — the "popcount loop" becomes the MXU's inner product.
+  form, fused into one elementwise-and-reduce loop.
+* ``hamming_matrix_mxu``: unpack to ±1 int8 and take a 256-deep integer dot:
+  ``dist = (256 - <a, b>) / 2``. The "popcount loop" becomes a matrix
+  product with int32 accumulation. This is the form the matchers use
+  (matching/core.distance_matrix).
 
 Descriptors are stored packed: uint32 [N, 8] (256 bits), bit i of word w =
 pattern test index w*32+i.
@@ -38,13 +38,13 @@ def unpack_bits(words: jnp.ndarray) -> jnp.ndarray:
 
 
 def hamming_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Packed [N, 8] x [M, 8] -> int32 [N, M] Hamming distance (VPU popcount)."""
+    """Packed [N, 8] x [M, 8] -> int32 [N, M] Hamming distance (XOR+popcount)."""
     x = jnp.bitwise_xor(a[:, None, :], b[None, :, :])
     return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 
 
 def hamming_matrix_mxu(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Packed [N, 8] x [M, 8] -> int32 [N, M] via ±1 int8 matmul on the MXU."""
+    """Packed [N, 8] x [M, 8] -> int32 [N, M] via a ±1 int8 matmul."""
     sa = jnp.where(unpack_bits(a), 1, -1).astype(jnp.int8)
     sb = jnp.where(unpack_bits(b), 1, -1).astype(jnp.int8)
     dot = jax.lax.dot_general(

@@ -3,8 +3,8 @@ blur, bilinear pyramid resize, and batched patch extraction.
 
 These replace the OpenCV calls in the reference's ORBextractor
 (cvtColor Tracking.cc:96-109, cv::resize ComputePyramid ORBextractor.cc:971,
-GaussianBlur ORBextractor.cc:898) with XLA-fusable jnp code. Convolutions
-lower onto the MXU; everything operates on float32 [H, W] images.
+GaussianBlur ORBextractor.cc:898) with XLA-fusable jnp code; everything
+operates on float32 [H, W] images.
 """
 from __future__ import annotations
 
@@ -42,7 +42,8 @@ def gaussian_blur(img: jnp.ndarray, ksize: int = 7, sigma: float = 2.0) -> jnp.n
     """
     # Separable taps as shifted static slices: XLA fuses the weighted adds
     # into two elementwise passes. A conv_general_dilated with C=1 channels
-    # hits a degenerate (slow) TPU convolution path — measured ~10x slower.
+    # took a degenerate (slow) convolution path on the accelerator the
+    # system was first built on; not measured on an NVIDIA GPU.
     k = _gaussian_kernel(ksize, sigma)
     pad = ksize // 2
     h, w = img.shape[-2], img.shape[-1]
@@ -79,8 +80,10 @@ def resize_bilinear(img: jnp.ndarray, out_h: int, out_w: int) -> jnp.ndarray:
 
 def _resize_matrix(n_in: int, n_out: int, n_pad: int) -> np.ndarray:
     """[n_pad, n_in] bilinear interpolation matrix (half-pixel centers), rows
-    past n_out are zero. Separable resize as a dense matmul: on TPU the MXU
-    eats this while a gather-based resize is latency-bound."""
+    past n_out are zero. Separable resize as a dense matmul, which the
+    matrix units take at full rate where a gather-based resize is
+    latency-bound (chosen on the accelerator the system was first built on;
+    the H100 comparison is open)."""
     R = np.zeros((n_pad, n_in), np.float32)
     scale = n_in / n_out
     for i in range(n_out):

@@ -2,14 +2,14 @@
 replacement (reference Optimizer::BundleAdjustment Optimizer.cc:49-204 and
 Optimizer::LocalBundleAdjustment Optimizer.cc:340-589).
 
-Design (TPU-first):
+Design (accelerator-first):
   * Observations are stored GROUPED BY POINT in fixed-shape padded arrays
     [P, O]: this makes landmark marginalization (the Schur trick g2o gets
     from setMarginalized(true), Optimizer.cc:98) a batched 3x3 inverse over
     points, and the reduced-camera-system assembly a single scatter-add of
     [P, O, O] 6x6 block products — no sparse matrix structures.
   * The reduced system S (6C x 6C, C = #cameras <= a few hundred for local
-    BA) is solved densely on the MXU; fixed cameras are projected out by
+    BA) is solved densely on the device; fixed cameras are projected out by
     masking rows/columns.
   * LM loop with multiplicative damping and branchless accept/reject; the
     abort-BA preemption of the reference (mbAbortBA, LocalMapping.cc:116)
@@ -110,10 +110,11 @@ def assemble_reduced(prob: BAProblem, cam_T, points, active, lam):
     Y = jnp.einsum("poij,pjk->poik", W, H_pp_inv)  # [P, O, 6, 3]
 
     # Reduced camera system S [C, C, 6, 6], b_red [C, 6], assembled with
-    # one-hot contractions on the MXU. The index-based alternative — a
-    # scatter-add of [P, O, O] 6x6 pair blocks — serializes on duplicate
-    # camera indices on TPU and dominated the whole BA (measured ~10x the
-    # cost of these matmuls).
+    # one-hot contractions (matrix products). The index-based alternative —
+    # a scatter-add of [P, O, O] 6x6 pair blocks — serializes on duplicate
+    # camera indices; on the accelerator the system was first built on it
+    # dominated the whole BA. Which form wins on an NVIDIA GPU is not
+    # measured.
     E = jax.nn.one_hot(prob.obs_cam, C, dtype=cam_T.dtype)  # [P, O, C]
     # Diagonal contributions Σ_po E Hc_o.
     S_diag = jnp.einsum("poc,poij->cij", E, Hc_o)  # [C, 6, 6]
@@ -189,7 +190,7 @@ def classify_obs(prob: BAProblem, cam_T, points, chi2_th: float = CHI2_MONO):
 
 class BAState(NamedTuple):
     """Resumable LM state: run a few iterations, check the host abort flag,
-    continue — the TPU-native form of g2o's force-stop preemption
+    continue — the device-side form of g2o's force-stop preemption
     (``mbAbortBA`` set by keyframe insertion, LocalMapping.cc:116;
     ``setForceStopFlag`` Optimizer.cc:65-66). Partial results are valid at
     every chunk boundary, exactly as g2o's in-place vertex updates are."""

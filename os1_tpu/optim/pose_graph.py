@@ -8,7 +8,7 @@ measurement time): e = log_sim3(S_ji . S_i . S_j^-1) — zero when the
 current poses reproduce the measured relative transform. Left-multiplicative
 updates, autodiff edge Jacobians (vmapped jacfwd over the edge batch),
 dense [7K, 7K] normal equations — for the few-hundred-keyframe graphs the
-essential graph produces, one dense MXU solve beats sparse bookkeeping.
+essential graph produces, one dense batched solve beats sparse bookkeeping.
 """
 from __future__ import annotations
 

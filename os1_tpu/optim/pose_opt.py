@@ -74,8 +74,8 @@ def optimize_pose(
     accept_reject=True is classic LM (two cost evaluations per iteration,
     branchless step rejection — matches g2o's behavior). accept_reject=False
     is damped Gauss-Newton: ONE normal-system evaluation per iteration and
-    every step taken. On TPU the solve is a latency-bound sequential chain of
-    tiny ops, so halving evaluations halves wall time; with a motion-model
+    every step taken. The solve is a latency-bound sequential chain of tiny
+    ops, so halving evaluations halves wall time; with a motion-model
     initialization and Huber IRLS the GN steps are reliably descent steps,
     and the per-round chi2 reclassification discards any observation a bad
     step would have misclassified. The hot fused tracker uses GN with fewer

@@ -51,19 +51,21 @@ class MeshBABackend:
     result mirror optim.ba_core. Point counts must divide the mesh size
     (callers' bucketed shapes are powers of two, the mesh is 2^k devices).
 
-    The mesh may be 1D ("points": a single-host ICI slice, config 4) or 2D
-    ("dcn", "ici": multi-host, config 5) — landmarks shard over ALL axes
-    and the per-iteration psum of the reduced camera system contracts over
-    ("ici", "dcn") in that order, so XLA reduces within each host over ICI
-    first and crosses DCN only with the already-reduced [C,C,6,6] block —
-    the hierarchical all-reduce multi-host Schur BA wants (dist_ba.py
-    design note; scaling-book hierarchical-collective recipe).
+    The mesh may be 1D ("points": the cards of one host, config 4) or 2D
+    ("dcn", "ici": hosts x cards per host, config 5) — landmarks shard over
+    ALL axes and the per-iteration psum of the reduced camera system
+    contracts over ("ici", "dcn") in that order, so XLA reduces within each
+    host first (NVLink, all to all) and crosses the network between hosts
+    only with the already-reduced [C,C,6,6] block — the hierarchical
+    all-reduce multi-host Schur BA wants (dist_ba.py design note). The axis
+    names: "ici" (inter-chip link) is the in-host axis and "dcn"
+    (data-centre network) the cross-host one.
     """
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         axes = tuple(mesh.axis_names)
-        # Reduction order: innermost (ICI-like, last axis) first.
+        # Reduction order: innermost (in-host, last axis) first.
         red = tuple(reversed(axes))
         pt = P(axes)
         rep = P()
@@ -86,7 +88,7 @@ class MeshBABackend:
                 S, b_red, H_pp_inv, W, b_p = ba_core.assemble_reduced(
                     prob, cam_T, points, state.active, lam
                 )
-                # The one collective per LM iteration (ICI-first when 2D).
+                # The one collective per LM iteration (in-host first when 2D).
                 S = jax.lax.psum(S, red)
                 b_red = jax.lax.psum(b_red, red)
                 delta_c = ba_core.solve_cameras(S, b_red, prob.cam_fixed, lam)
@@ -171,9 +173,10 @@ class MeshBABackend:
 def two_level_backend(n_hosts: int, devices=None) -> "MeshBABackend":
     """A ("dcn", "ici") 2D-mesh backend simulating (or spanning) n_hosts
     hosts: devices reshape to [n_hosts, per_host] and landmarks shard over
-    both axes. On real multi-host topologies the outer axis crosses DCN;
-    under the CPU virtual mesh it validates the hierarchical program
-    (config 5's two-process story compiles and matches single-device)."""
+    both axes. On a real multi-host cluster the outer axis crosses the
+    network between hosts and the inner one NVLink within a host; under the
+    CPU virtual mesh it validates the hierarchical program (config 5's
+    two-process story compiles and matches single-device)."""
     devs = np.asarray(devices if devices is not None else jax.devices())
     assert len(devs) % n_hosts == 0, (len(devs), n_hosts)
     mesh = Mesh(devs.reshape(n_hosts, -1), ("dcn", "ici"))

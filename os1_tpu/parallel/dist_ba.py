@@ -1,20 +1,22 @@
-"""Distributed Schur-complement bundle adjustment over a TPU device mesh.
+"""Distributed Schur-complement bundle adjustment over a device mesh.
 
 The scaling design of BASELINE.json configs 4-5: landmarks are sharded
-across chips along the point axis; each chip marginalizes its own landmark
-blocks locally (the embarrassingly parallel part of Schur BA), the reduced
-camera system — tiny compared to the landmark system: (6C)^2 vs 3P — is
-summed over ICI with one psum, solved redundantly on every chip, and the
-camera update is broadcast back implicitly (every chip already has it).
+across devices along the point axis; each device marginalizes its own
+landmark blocks locally (the embarrassingly parallel part of Schur BA), the
+reduced camera system — tiny compared to the landmark system: (6C)^2 vs 3P
+— is summed with one psum (an all-reduce over NVLink between the cards of
+one host), solved redundantly on every device, and the camera update is
+broadcast back implicitly (every device already has it).
 Landmark back-substitution again touches only local shards.
 
 Communication per LM iteration: one psum of [C, C, 6, 6] + [C, 6] + two
-scalars — independent of the number of points. This is the TPU-native
+scalars — independent of the number of points. This is the device-mesh
 re-expression of what the reference cannot do at all (g2o is strictly
 single-threaded shared-memory; SURVEY.md §2.3).
 
-Works on any jax.sharding.Mesh: real TPU slices (ICI) or the virtual CPU
-host mesh used by tests and the driver's dryrun.
+Works on any jax.sharding.Mesh: the GPUs of one host, joined all to all by
+NVLink (so a 1-D mesh follows the algorithm alone), or the virtual CPU host
+mesh used by the tests and the multi-device dry run.
 """
 from __future__ import annotations
 

@@ -11,9 +11,12 @@ intersection via two-pointer-free broadcast compare) with a psum-free
 sharded top-k: each shard returns its local top-k, the host merges n_dev
 small lists.
 
-Parity contract: scores match vocab.database.KeyFrameDatabase.score_kf
-(L1 min-intersection) exactly for bows within the per-keyframe word
-capacity (W_CAP); tests/test_parallel.py checks it against the host DB.
+Parity contract: scores match the host inverted file's L1 min-intersection
+scores (vocab.database.KeyFrameDatabase) exactly; tests/test_parallel.py
+checks it against the host DB. Each keyframe row holds ``max_words`` words:
+a bow has at most one word per feature, so the extractor's feature count is
+the capacity. A larger bow is refused rather than truncated (truncation
+would drop words by id, not by weight, and change the scores).
 """
 from __future__ import annotations
 
@@ -23,8 +26,6 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 AXIS = "kfs"
-W_CAP = 512  # max distinct words kept per keyframe bow (1024-feature frames
-#              produce <= 1024 words; the tail weights are negligible)
 
 
 def _score_kernel(kf_words, kf_weights, q_words, q_weights):
@@ -47,14 +48,15 @@ class DistKeyFrameDatabase:
     scales the multi-session regime across chips.
     """
 
-    def __init__(self, mesh: Mesh, max_keyframes: int):
+    def __init__(self, mesh: Mesh, max_keyframes: int, max_words: int):
         assert max_keyframes % mesh.devices.size == 0, (
             "keyframe capacity must divide the mesh"
         )
         self.mesh = mesh
         self.max_keyframes = max_keyframes
-        self.words = np.full((max_keyframes, W_CAP), -1, np.int32)
-        self.weights = np.zeros((max_keyframes, W_CAP), np.float32)
+        self.max_words = max_words
+        self.words = np.full((max_keyframes, max_words), -1, np.int32)
+        self.weights = np.zeros((max_keyframes, max_words), np.float32)
         self.active = np.zeros(max_keyframes, bool)
         self._device = None  # (words, weights, active) on the mesh
         kf = P(AXIS)
@@ -74,9 +76,17 @@ class DistKeyFrameDatabase:
         ))
 
     # ---------------- host-side bookkeeping --------------------------- #
+    def _checked_size(self, bow) -> int:
+        n = len(bow.words)
+        if n > self.max_words:
+            raise ValueError(
+                f"bow has {n} words; the sharded database holds {self.max_words}"
+            )
+        return n
+
     def add(self, kf: int, bow) -> None:
         """Insert/replace a keyframe's sparse bow (words sorted ascending)."""
-        n = min(len(bow.words), W_CAP)
+        n = self._checked_size(bow)
         self.words[kf] = -1
         self.weights[kf] = 0.0
         self.words[kf, :n] = bow.words[:n]
@@ -107,9 +117,9 @@ class DistKeyFrameDatabase:
         """(ids, scores) of the best-matching keyframes, best first."""
         if self._device is None:
             self.publish()
-        qw = np.full(W_CAP, -2, np.int32)  # -2: never matches kf padding
-        qv = np.zeros(W_CAP, np.float32)
-        n = min(len(bow.words), W_CAP)
+        qw = np.full(self.max_words, -2, np.int32)  # -2: never matches kf padding
+        qv = np.zeros(self.max_words, np.float32)
+        n = self._checked_size(bow)
         qw[:n] = bow.words[:n]
         qv[:n] = bow.weights[:n]
         vals, idx = jax.device_get(

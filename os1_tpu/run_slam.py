@@ -20,7 +20,7 @@ import numpy as np
 def build_parser():
     p = argparse.ArgumentParser(
         prog="os1_tpu.run_slam",
-        description="TPU-native monocular SLAM (capability parity with os1)",
+        description="Monocular SLAM in JAX (capability parity with os1)",
     )
     p.add_argument("settings", nargs="?", default=None,
                    help="calibration YAML (reference webcam.yaml schema)")
@@ -44,8 +44,8 @@ def build_parser():
     p.add_argument("--snapshots", default=None, help="snapshot directory")
     p.add_argument("--warmup", action="store_true",
                    help="compile every pipeline program into the persistent "
-                        "XLA cache (~/.cache/os1_tpu_xla) and exit; later "
-                        "runs on this machine start in seconds")
+                        "XLA cache ($JAX_COMPILATION_CACHE_DIR, else .jax_cache "
+                        "in the checkout) and exit; later runs reuse it")
     return p
 
 

@@ -2,12 +2,12 @@
 
 Functional replacement for the reference's PnPsolver (PnPsolver.cc, 1029 LoC
 EPnP + sequential RANSAC, used by relocalization Tracking.cc:1015). Design
-deviation, deliberately TPU-first: instead of EPnP's 4-point minimal solve
+deviation, deliberately accelerator-first: instead of EPnP's 4-point minimal solve
 (control points + Gauss-Newton on betas — branchy and hard to batch), every
 hypothesis solves the 6-point DLT system — a single 12x12 symmetric eigh,
 identical in shape across hypotheses, so ALL RANSAC iterations run as one
 batched kernel. 6-point samples need more iterations for the same outlier
-rate, but 256 batched hypotheses cost less on the MXU than 300 sequential
+rate, but 256 batched hypotheses cost less on the device than 300 sequential
 4-point EPnP solves cost on a CPU (the reference's own budget,
 SetRansacParameters(0.99, 10, 300, 4, 0.5, 5.991), Tracking.cc:1015).
 The final pose is re-fit on all inliers and polished by the caller's LM

@@ -1,37 +1,39 @@
 """Persistent XLA compilation cache.
 
-The SLAM pipeline is ~15 large fused device programs; on TPU their first
-compile costs minutes (the 8-level extractor alone >200 s) while execution
-is sub-millisecond. The reference system has the same shape of problem at a
-smaller scale — its binary vocabulary format exists purely because the text
-parse was ~100x slower than the load (reference README.md:24) — and the
-persistent XLA cache is the analogous fix here: compile once per machine,
-re-load in milliseconds in every later process.
+The SLAM pipeline is ~15 large fused device programs whose first compile
+takes far longer than a run of any of them. The reference system has the
+same shape of problem at a smaller scale — its binary vocabulary format
+exists purely because the text parse was ~100x slower than the load
+(reference README.md:24) — and the persistent XLA cache is the analogous fix
+here: compile once, re-load in every later process.
 
-Enabled automatically on package import (see os1_tpu/__init__.py); opt out
-with OS1_NO_COMPILATION_CACHE=1 or redirect with OS1_COMPILATION_CACHE_DIR.
+Enabled automatically on package import (see os1_tpu/__init__.py). The
+directory is ``JAX_COMPILATION_CACHE_DIR`` when that is set (JAX reads it
+itself), and otherwise one fixed directory inside the checkout. A fixed path
+matters: the path is part of what a later process must find again.
 """
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.join(os.path.expanduser("~"), ".cache", "os1_tpu_xla")
+_DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def enable_compilation_cache(path: str | None = None) -> str | None:
-    """Point JAX's persistent compilation cache at ``path`` (default:
-    ~/.cache/os1_tpu_xla, override via OS1_COMPILATION_CACHE_DIR).
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
 
     Must run before the first compilation; safe to call repeatedly.
-    Returns the cache dir, or None if disabled.
     """
-    if os.environ.get("OS1_NO_COMPILATION_CACHE"):
-        return None
     import jax
 
-    path = path or os.environ.get("OS1_COMPILATION_CACHE_DIR", _DEFAULT_DIR)
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = _DEFAULT_DIR
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     # Cache everything that took >=1 s to build: the tiny entries are not
     # worth the disk I/O, every real pipeline program is far above this.
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

@@ -131,19 +131,18 @@ def default_vocabulary() -> Vocabulary:
     (data/vocab_1m.bin, k=10 L=6, ~8.5x10^5 nodes / 7.6x10^5 words — the
     analogue of the reference's ~10^6-node orbVoc.bin, trained by
     scripts/train_vocab_1m.py on a 4.8M-descriptor rendered corpus), then
-    the mid-size data/vocab_100k.bin, then the small texture-trained
-    default (data/default_vocab.bin), training one if absent."""
+    the small texture-trained default (data/default_vocab.bin), training one
+    if absent."""
     global _DEFAULT_CACHE
     if _DEFAULT_CACHE is not None:
         return _DEFAULT_CACHE
     import os
 
     data_dir = os.path.join(os.path.dirname(__file__), "..", "data")
-    for name in ("vocab_1m.bin", "vocab_100k.bin"):
-        big = os.path.abspath(os.path.join(data_dir, name))
-        if os.path.exists(big):
-            _DEFAULT_CACHE = load_binary(big)
-            return _DEFAULT_CACHE
+    big = os.path.abspath(os.path.join(data_dir, "vocab_1m.bin"))
+    if os.path.exists(big):
+        _DEFAULT_CACHE = load_binary(big)
+        return _DEFAULT_CACHE
     path = os.path.join(os.path.dirname(__file__), "..", "data", "default_vocab.bin")
     path = os.path.abspath(path)
     if not os.path.exists(path):

@@ -3,12 +3,12 @@
 Replaces DBoW2's TemplatedVocabulary (reference Thirdparty/DBoW2, ~1.9k LoC
 of pointer-tree traversal per descriptor) with a flat-array tree and a
 vmapped descent: all N descriptors walk the tree together, each level being
-one gather + one popcount-distance + one argmin — VPU-shaped work.
+one gather + one popcount-distance + one argmin — elementwise work.
 
 BoW vectors are kept DENSE ([W] float32, L1-normalized): with W ~ 10^4 and
 hundreds of keyframes the whole database is a few MB, and similarity
 queries against every keyframe become one broadcast |v - V| reduction on
-the MXU/VPU instead of DBoW2's inverted-file walk (KeyFrameDatabase.cc:74).
+the device instead of DBoW2's inverted-file walk (KeyFrameDatabase.cc:74).
 Scoring matches DBoW2's L1 norm: s(v, w) = 1 - 0.5 * ||v - w||_1 in [0, 1].
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Generate one shard of the reference-scale vocabulary training corpus on
 the host CPU (rendering is numpy; extraction runs on the CPU backend so the
-TPU stays free for the pipeline benches).
+accelerator stays free for the pipeline benches).
 
 Usage: python scripts/gen_vocab_corpus.py SHARD N_SHARDS [IMAGES_PER_SHARD]
 Writes /tmp/os1_vocab_shard_{SHARD}_{IMAGES}.npz (descs, docs).

@@ -209,3 +209,18 @@ class TestFrameDrawer:
         out = fd.draw()
         assert out.shape == (H + 22, W, 3)
         sys_.shutdown()
+
+
+@pytest.mark.parametrize("shape", [(48, 48, 512, 512), (7, 11, 100, 57), (100, 80, 37, 53)])
+def test_resize_cubic_matches_cv2(shape):
+    """The numpy bicubic that renders every synthetic texture reproduces
+    cv2.resize(INTER_CUBIC) within 1e-3 gray levels, upscaling and down."""
+    cv2 = pytest.importorskip("cv2")
+    from os1_tpu.io.synthetic import resize_cubic
+
+    hi, wi, h, w = shape
+    base = np.random.default_rng(1).uniform(20, 235, (hi, wi)).astype(np.float32)
+    ref = cv2.resize(base, (w, h), interpolation=cv2.INTER_CUBIC)
+    out = resize_cubic(base, h, w)
+    assert out.shape == ref.shape and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)

@@ -2,6 +2,7 @@
 rotation consistency, epipolar gating, and a synthetic two-view recall test."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from os1_tpu.features.orb import FrameFeatures
 from os1_tpu.matching import core, matchers
@@ -194,16 +195,33 @@ class TestVariants:
         assert ok[0] and not ok[1] and not ok[2]  # r=6: (10,0) off; far point off
 
 
-class TestPallasHamming:
-    def test_matches_mxu(self, rng):
-        """The Pallas VMEM kernel (interpret mode off-TPU) must agree with
-        the MXU popcount-matmul bit-for-bit."""
-        from os1_tpu.ops.hamming import hamming_matrix_mxu
-        from os1_tpu.ops.pallas_hamming import hamming_matrix_pallas
+def _np_popcount_table(a, b):
+    """numpy XOR+popcount reference, one packed word at a time."""
+    pop8 = np.array([bin(v).count("1") for v in range(256)], np.int32)
+    out = np.zeros((len(a), len(b)), np.int32)
+    for w in range(a.shape[1]):
+        x = np.bitwise_xor(a[:, None, w], b[None, :, w])
+        out += pop8[x.view(np.uint8)].reshape(x.shape + (4,)).sum(-1)
+    return out
 
-        a = jnp.asarray(rng.integers(0, 2**32, (300, 8)).astype(np.uint32))
-        b = jnp.asarray(rng.integers(0, 2**32, (512, 8)).astype(np.uint32))
-        ref = np.asarray(hamming_matrix_mxu(a, b))
-        out = np.asarray(hamming_matrix_pallas(a, b, interpret=True))
-        assert out.shape == ref.shape
-        assert (out == ref).all()
+
+@pytest.mark.parametrize("n,m", [(1, 1), (300, 512), (1024, 1000), (1024, 4096)])
+def test_hamming_forms_agree(rng, n, m):
+    """Both XLA formulations equal numpy popcount exactly, and
+    distance_matrix runs the one kept formulation at every M."""
+    import jax
+
+    from os1_tpu.ops.hamming import hamming_matrix, hamming_matrix_mxu
+
+    a = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (m, 8), dtype=np.uint32)
+    ref = _np_popcount_table(a, b)
+    da, db = jnp.asarray(a), jnp.asarray(b)
+    np.testing.assert_array_equal(np.asarray(hamming_matrix(da, db)), ref)
+    np.testing.assert_array_equal(np.asarray(hamming_matrix_mxu(da, db)), ref)
+    np.testing.assert_array_equal(np.asarray(core.distance_matrix(da, db)), ref)
+
+    def prims(fn):
+        return [e.primitive.name for e in jax.make_jaxpr(fn)(da, db).jaxpr.eqns]
+
+    assert prims(core.distance_matrix) == prims(hamming_matrix_mxu)

@@ -104,7 +104,7 @@ class TestResume:
         # Feed a frame from the mapped region: must relocalize.
         state, Tcw = sys2.track_monocular(frames[12], timestamp=99.0)
         assert state == TrackingState.OK
-        est12 = [T for (ts, fid, T) in sys_.tracker.trajectory if fid == 12][0]
+        est12 = [T for (ts, fid, T) in sys_.tracker.frame_trajectory() if fid == 12][0]
         dR = Tcw[:3, :3] @ est12[:3, :3].T
         ang = np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))
         assert ang < 0.05

@@ -99,9 +99,9 @@ class TestDistributedBA:
         """Config 5's multi-host layout on the virtual mesh: a ("dcn",
         "ici") 2x4 mesh — two simulated hosts of four devices — must run
         the full resumable BA protocol and match the single-device solver.
-        On real hardware the outer axis crosses DCN; the hierarchical psum
-        (ICI first, then DCN on the reduced [C,C,6,6] block) is the same
-        compiled program."""
+        On a real cluster the outer axis crosses the network between hosts;
+        the hierarchical psum (within each host first, then across hosts on
+        the reduced [C,C,6,6] block) is the same compiled program."""
         from os1_tpu.parallel.backend import two_level_backend
 
         prob, poses, pts = build_problem(rng)
@@ -241,7 +241,7 @@ class TestDistDatabase:
         )
         host = KeyFrameDatabase(vocab, max_keyframes=64)
         kmesh = _Mesh(np.asarray(jax.devices())[:8], ("kfs",))
-        dist = DistKeyFrameDatabase(kmesh, max_keyframes=64)
+        dist = DistKeyFrameDatabase(kmesh, max_keyframes=64, max_words=200)
 
         bows = []
         for k in range(40):
@@ -262,6 +262,64 @@ class TestDistDatabase:
             if len(h_ids) and len(d_ids):
                 assert int(d_ids[0]) == int(h_ids[0])
 
+    @staticmethod
+    def _big_bows(rng, n_kf, n_words=900, universe=4000):
+        from os1_tpu.vocab.database import SparseBow
+
+        bows = []
+        for _ in range(n_kf):
+            w = np.sort(rng.choice(universe, n_words, replace=False)).astype(np.int32)
+            v = rng.uniform(0.1, 1.0, n_words).astype(np.float32)
+            bows.append(SparseBow(words=w, weights=v / v.sum()))
+        return bows
+
+    def test_bench_scale_bows_score_exactly(self, mesh):
+        """Bows of a 1024-feature frame hold up to 1024 words; the sharded
+        scores must equal the host inverted file's for all of them (a cap
+        below the feature count would drop words by id and change the
+        scores)."""
+        from jax.sharding import Mesh as _Mesh
+
+        from os1_tpu.parallel import DistKeyFrameDatabase
+        from os1_tpu.vocab.database import KeyFrameDatabase
+        from os1_tpu.vocab.train import build_vocabulary
+
+        rng = np.random.default_rng(3)
+        vocab = build_vocabulary(
+            rng.integers(0, 2**32, size=(500, 8), dtype=np.uint32),
+            branching=4, depth=2, seed=1,
+        )
+        host = KeyFrameDatabase(vocab, max_keyframes=16)
+        dist = DistKeyFrameDatabase(
+            _Mesh(np.asarray(jax.devices())[:8], ("kfs",)), max_keyframes=16,
+            max_words=1024)
+        bows = self._big_bows(rng, 16)
+        for k, bow in enumerate(bows):
+            host.add(k, bow)
+            dist.add(k, bow)
+        for probe in (0, 5, 11):
+            excl = np.array([probe])
+            h_ids, h_sc = host.query(bows[probe], exclude=excl)
+            d_ids, d_sc = dist.query(bows[probe], exclude=excl, top=16)
+            d_map = dict(zip(d_ids.tolist(), d_sc.tolist()))
+            assert len(h_ids)
+            for k, sc in zip(h_ids.tolist(), h_sc.tolist()):
+                np.testing.assert_allclose(d_map[k], sc, atol=1e-5)
+
+    def test_oversized_bow_is_refused(self, mesh):
+        from jax.sharding import Mesh as _Mesh
+
+        from os1_tpu.parallel import DistKeyFrameDatabase
+
+        dist = DistKeyFrameDatabase(
+            _Mesh(np.asarray(jax.devices())[:8], ("kfs",)), max_keyframes=8,
+            max_words=64)
+        big = self._big_bows(np.random.default_rng(0), 1, n_words=65)[0]
+        with pytest.raises(ValueError):
+            dist.add(0, big)
+        with pytest.raises(ValueError):
+            dist.query(big)
+
     def test_erase_and_min_score(self, mesh):
         from jax.sharding import Mesh as _Mesh
 
@@ -276,7 +334,7 @@ class TestDistDatabase:
         )
         host = KeyFrameDatabase(vocab, max_keyframes=16)
         kmesh = _Mesh(np.asarray(jax.devices())[:8], ("kfs",))
-        dist = DistKeyFrameDatabase(kmesh, max_keyframes=16)
+        dist = DistKeyFrameDatabase(kmesh, max_keyframes=16, max_words=100)
         d = rng.integers(0, 2**32, size=(100, 8), dtype=np.uint32)
         _, _, bow = host.compute_bow(d, np.ones(100, bool))
         dist.add(3, bow)

@@ -104,7 +104,7 @@ class TestRelocalizationE2E:
         assert state == TrackingState.OK
         # Pose close to the ground-truth pose at frame 10 (same scale as the
         # map, so compare against the tracked estimate from the first pass).
-        est10 = [T for (ts, fid, T) in sys_.tracker.trajectory if fid == 10][0]
+        est10 = [T for (ts, fid, T) in sys_.tracker.frame_trajectory() if fid == 10][0]
         # Rotation should agree tightly.
         dR = Tcw[:3, :3] @ est10[:3, :3].T
         ang = np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))

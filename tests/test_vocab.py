@@ -163,8 +163,8 @@ class TestDatabase:
 class TestDatabaseAtScale:
     """Place-recognition precision with a 500+-keyframe database — the
     regime the reference's inverted file is built for (resizeInvertedFile,
-    KeyFrameDatabase.cc:337). Uses the packaged vocabulary (the
-    reference-scale data/vocab_100k.bin when present)."""
+    KeyFrameDatabase.cc:337). Uses the packaged default vocabulary (the
+    reference-scale data/vocab_1m.bin)."""
 
     N_KF = 512
     N_SCENE = 64  # distinct "places"; 8 keyframes re-observe each place
